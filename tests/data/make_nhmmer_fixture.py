@@ -27,11 +27,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-from havac_tpu.io.fasta import load_fasta_database  # noqa: E402
-from havac_tpu.io.hmm import write_hmm  # noqa: E402
-from havac_tpu.ops.reference import ssv_reference  # noqa: E402
-from havac_tpu.scoring.reprojection import project_models  # noqa: E402
-from havac_tpu.testing.generator import generate_planted_fixture  # noqa: E402
+from havac.io.fasta import load_fasta_database  # noqa: E402
+from havac.io.hmm import write_hmm  # noqa: E402
+from havac.ops.reference import ssv_reference  # noqa: E402
+from havac.scoring.reprojection import project_models  # noqa: E402
+from havac.testing.generator import generate_planted_fixture  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 P_VALUE = 0.02

@@ -1,7 +1,7 @@
 """One process of a multi-process JAX CPU cluster (spawned by
 tests/test_multihost.py).
 
-Executes the per-host recipe from havac_tpu/parallel/multihost.py for real:
+Executes the per-host recipe from havac/parallel/multihost.py for real:
 jax.distributed over localhost TCP, a global mesh spanning both processes'
 virtual CPU devices, host-local database staging, and addressable-shard-only
 hit decode. Writes this host's partial hit list to <outdir>/proc<i>.npz; the
@@ -9,7 +9,7 @@ parent concatenates the per-host outputs and asserts exact parity with the
 single-process oracle.
 
 Usage: multihost_worker.py <coordinator> <num_processes> <process_id> <outdir>
-       [--case plain|overflow|2d|ckpt_diverge]
+       [--case plain|overflow|ckpt_diverge]
 """
 
 import os
@@ -21,21 +21,18 @@ import numpy as np
 def make_inputs(case: str, n_global_dev: int):
     rng = np.random.default_rng(0)
     if case == "plain":
-        codes = rng.integers(0, 4, size=4 * 3072 * n_global_dev)
+        codes = rng.integers(0, 4, size=4 * 1024 * n_global_dev)
         scores = rng.integers(-40, 110, size=(75, 4))
     elif case == "overflow":
         # Hits dense ONLY in process 0's half of the database: symbol 0
         # scores high, and only the first half contains symbol 0. With tiny
         # initial caps, host 0 overflows while host 1 does not — the exact
-        # divergence the global_record_max sync exists for.
-        L = 2 * 3072 * n_global_dev
+        # divergence the global_count_max sync exists for.
+        L = 2 * 1024 * n_global_dev
         codes = rng.integers(1, 4, size=L)
         codes[: L // 2] = 0
-        scores = np.full((30, 4), -40)
+        scores = np.full((32, 4), -40)
         scores[:, 0] = 110
-    elif case == "2d":
-        codes = rng.integers(0, 4, size=2 * 3072 * (n_global_dev // 2))
-        scores = rng.integers(-40, 110, size=(64, 4))
     else:
         raise ValueError(case)
     return codes.astype(np.uint8), scores.astype(np.int8)
@@ -62,25 +59,15 @@ def main():
 
     codes, scores = make_inputs(case, n_dev)
 
-    if case == "2d":
-        from havac_tpu.parallel.swar_dist2d import Swar2DSweep
+    from havac.parallel.mesh_sweep import MeshSweep
 
-        mesh = Mesh(np.array(jax.devices()).reshape(-1, 2),
-                    ("seq", "model"))
-        sweep = Swar2DSweep(codes, mesh, "seq", "model", block_width=3072,
-                            rows_per_step=30, interpret=True)
-        prefix = np.array([0, 33, 64], dtype=np.int64)
-        rows, pos = sweep.run(scores, prefix)
-    else:
-        from havac_tpu.parallel.swar_dist import SwarDistributedSweep
-
-        mesh = Mesh(np.array(jax.devices()), ("seq",))
-        kw = {}
-        if case == "overflow":
-            kw = dict(record_cap=16)
-        sweep = SwarDistributedSweep(codes, mesh, block_width=3072,
-                                     rows_per_step=30, interpret=True, **kw)
-        rows, pos = sweep.run(scores)
+    mesh = Mesh(np.array(jax.devices()), ("seq",))
+    kw = {}
+    if case == "overflow":
+        kw = dict(record_cap=16)
+    sweep = MeshSweep(codes, mesh, rows_per_step=32, align=256,
+                      interpret=True, **kw)
+    rows, pos = sweep.run(scores)
 
     np.savez(os.path.join(outdir, f"proc{pid}.npz"), rows=rows, pos=pos,
              record_cap=sweep.record_cap)
@@ -101,20 +88,20 @@ def run_ckpt_diverge(pid: int, outdir: str):
     step 0 and the merged hits stay exact (asserted by the parent)."""
     import jax
 
-    from havac_tpu.engine import Havac, HavacRunState
-    from havac_tpu.ops.common import SsvKernelConfig
-    from havac_tpu.testing.generator import generate_planted_fixture
+    from havac.engine import Havac, HavacRunState
+    from havac.ops.common import SsvKernelConfig
+    from havac.testing.generator import generate_planted_fixture
     from jax.sharding import Mesh
 
     models, records = generate_planted_fixture(
         seed=61, model_length=40, sequence_length=30000, num_models=2)
     fasta = "".join(f">{n}\n{s}\n" for n, s in records)
-    cfg = SsvKernelConfig.swar(block_width=3072, interpret=True)
+    cfg = SsvKernelConfig(block_width=1024, rows_per_strip=8)
     mesh = Mesh(np.array(jax.devices()), ("seq",))
     ckpt = os.path.join(outdir, "mesh.ckpt.npz")
 
     def make():
-        e = Havac(p_value=0.05, backend="pallas_interpret", config=cfg,
+        e = Havac(p_value=0.05, backend="gpu_interpret", config=cfg,
                   mesh=mesh, checkpoint_path=ckpt)
         return e.load_phmm(models).load_sequence(fasta, is_text=True)
 

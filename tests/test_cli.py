@@ -5,9 +5,9 @@ import json
 import numpy as np
 import pytest
 
-from havac_tpu.engine.cli import main
-from havac_tpu.io.hmm import write_hmm
-from havac_tpu.testing.generator import generate_planted_fixture
+from havac.engine.cli import main
+from havac.io.hmm import write_hmm
+from havac.testing.generator import generate_planted_fixture
 
 
 @pytest.fixture(scope="module")
@@ -122,3 +122,26 @@ def test_cli_serve(workdir, capsys, monkeypatch, tmp_path):
     assert rc == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert "error" in lines[1]
+
+
+def test_cli_search_on_the_gpu_kernel_matches_xla(workdir, capsys, tmp_path):
+    """The same search through the GPU kernel (interpreted on the CPU) and
+    through the XLA scan writes the same hits."""
+    outs = {}
+    for backend in ("gpu_interpret", "xla"):
+        outs[backend] = tmp_path / f"{backend}.tsv"
+        rc = main(["search", "--hmm", str(workdir / "m.hmm"),
+                   "--fasta", str(workdir / "db.fasta"), "--backend",
+                   backend, "--pvalue", "0.05", "--chunk-symbols", "1024",
+                   "--out", str(outs[backend])])
+        assert rc == 0
+    assert len(outs["xla"].read_text().splitlines()) > 1
+    assert outs["gpu_interpret"].read_text() == outs["xla"].read_text()
+
+
+def test_cli_refuses_gpu_backend_without_a_gpu(workdir):
+    from havac.engine.api import HavacUsageError
+
+    with pytest.raises(HavacUsageError, match="needs a GPU"):
+        main(["search", "--hmm", str(workdir / "m.hmm"),
+              "--fasta", str(workdir / "db.fasta"), "--backend", "gpu"])

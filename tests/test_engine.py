@@ -12,18 +12,17 @@ import time
 import numpy as np
 import pytest
 
-from havac_tpu.engine import Havac, HavacRunState, HavacUsageError
-from havac_tpu.io.fasta import load_fasta_database
-from havac_tpu.io.hmm import model_length_prefix_sums
-from havac_tpu.hits.decode import resolve_hits
-from havac_tpu.ops.common import SsvKernelConfig
-from havac_tpu.ops.reference import ssv_reference
-from havac_tpu.scoring.reprojection import project_models
-from havac_tpu.testing.generator import generate_planted_fixture
+from havac.engine import Havac, HavacRunState, HavacUsageError
+from havac.io.fasta import load_fasta_database
+from havac.io.hmm import model_length_prefix_sums
+from havac.hits.decode import resolve_hits
+from havac.ops.common import SsvKernelConfig
+from havac.ops.reference import ssv_reference
+from havac.scoring.reprojection import project_models
+from havac.testing.generator import generate_planted_fixture
 
 P_VALUE = 0.05
-CFG = SsvKernelConfig(block_width=1024, rows_per_strip=8, max_hit_tiles=512,
-                      interpret=True)
+CFG = SsvKernelConfig(block_width=1024, rows_per_strip=8)
 
 
 def fasta_text(records):
@@ -41,7 +40,7 @@ def assert_hits_equal(a, b):
     assert sorted(a.as_tuples()) == sorted(b.as_tuples())
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["xla", "gpu_interpret"])
 def test_end_to_end_matches_oracle(backend):
     models, records = generate_planted_fixture(
         seed=7, model_length=48, sequence_length=3000, num_models=3)
@@ -63,7 +62,7 @@ def test_public_verify_after_pipelined_run():
     unmaterialized None arrays and crashed)."""
     models, records = generate_planted_fixture(
         seed=7, model_length=48, sequence_length=3000, num_models=3)
-    engine = Havac(p_value=P_VALUE, config=CFG, backend="pallas_interpret")
+    engine = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret")
     engine.load_phmm(models)
     engine.load_sequence(load_fasta_database(
         fasta_text(records), pad_multiple=CFG.block_width, is_text=True))
@@ -136,11 +135,11 @@ def test_usage_errors_and_state():
 
 
 def test_alphabet_cardinality_at_load():
-    """Amino models (cardinality 20) LOAD since round 5 (SWAR card
-    parameter / xla one-hot; tests/test_amino.py covers exactness); an
+    """Amino models (cardinality 20) load (the GPU kernel and the XLA scan
+    take any cardinality up to 32; tests/test_amino.py covers exactness); an
     unknown cardinality still fails at load_phmm with a clear usage error,
     not an opaque downstream shape error."""
-    from havac_tpu.io.hmm import ProfileHmm
+    from havac.io.hmm import ProfileHmm
 
     amino = ProfileHmm(
         name="amino-1", model_length=8, max_length=100, alphabet="amino",
@@ -191,17 +190,13 @@ def test_async_run_and_abort():
 
 def test_hit_tile_overflow_retry(tmp_path):
     """Saturating scores make every cell hit; the engine must retry with a
-    bigger tile buffer instead of failing (reference analog: the 3.5 GiB hit
-    buffer bound, host/HavacHwClient.hpp:94). The pipelined path sizes its
-    buffer to the grid (overflow impossible); the serial path — used with
-    checkpointing — exercises the retry."""
+    bigger record buffer instead of failing (reference analog: the 3.5 GiB
+    hit buffer bound, host/HavacHwClient.hpp:94), with checkpointing on."""
     models, records = generate_planted_fixture(
         seed=9, model_length=16, sequence_length=2000, num_models=1)
-    cfg = SsvKernelConfig(block_width=1024, rows_per_strip=8, max_hit_tiles=1,
-                          interpret=True)
-    engine = Havac(p_value=P_VALUE, config=cfg, backend="pallas_interpret",
-                   checkpoint_path=str(tmp_path / "ck.npz"))
-    engine._force_serial = True  # the pipelined path can't overflow tiles
+    cfg = SsvKernelConfig(block_width=1024, rows_per_strip=8, max_hits=1)
+    engine = Havac(p_value=P_VALUE, config=cfg, backend="gpu_interpret",
+                   chunk_symbols=1024, checkpoint_path=str(tmp_path / "ck.npz"))
     engine.load_phmm(models)
     # Saturate: replace projected scores with +127 everywhere → hits all over.
     engine.load_sequence(fasta_text(records), is_text=True)
@@ -237,7 +232,7 @@ def test_row_and_column_chunked_run_is_exact():
         seed=19, model_length=25, sequence_length=6000, num_models=5)
     db = load_fasta_database(fasta_text(records), pad_multiple=CFG.block_width,
                              is_text=True)
-    grid = Havac(p_value=P_VALUE, config=CFG, backend="pallas_interpret",
+    grid = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret",
                  chunk_symbols=2048, chunk_rows=48)
     grid.load_phmm(models).load_sequence(db).run()
     whole = Havac(p_value=P_VALUE, config=CFG, backend="xla")
@@ -362,7 +357,7 @@ def test_scan_files_abandoned_generator_stops_producer(tmp_path):
 
 def test_both_strands_scanning():
     """strand='both' finds plants on the reverse strand at forward coords."""
-    from havac_tpu.io.fasta import reverse_complement
+    from havac.io.fasta import reverse_complement
 
     models, records = generate_planted_fixture(
         seed=71, model_length=40, sequence_length=1200, num_models=1)
@@ -401,9 +396,7 @@ def test_both_strands_scanning():
 
 def test_isolate_models_matches_independent_runs():
     """isolate_models: hits equal running each model independently (chains
-    never cross model boundaries) — on both XLA and SWAR backends."""
-    from havac_tpu.ops.common import SsvKernelConfig as _Cfg
-
+    never cross model boundaries) — on both the XLA and GPU backends."""
     models, records = generate_planted_fixture(
         seed=91, model_length=36, sequence_length=4000, num_models=3)
     fasta = fasta_text(records)
@@ -414,9 +407,8 @@ def test_isolate_models_matches_independent_runs():
         return e
 
     iso_xla = run("xla", CFG, isolate_models=True)
-    swar_cfg = _Cfg.swar(block_width=3072, interpret=True)
-    iso_swar = run("pallas_interpret", swar_cfg, isolate_models=True)
-    assert_hits_equal(iso_xla.hits(), iso_swar.hits())
+    iso_gpu = run("gpu_interpret", CFG, isolate_models=True)
+    assert_hits_equal(iso_xla.hits(), iso_gpu.hits())
 
     # Equivalent to scanning each model alone.
     expected = []
@@ -441,10 +433,10 @@ def test_pipelined_checkpoint_resume(tmp_path):
         seed=37, model_length=24, sequence_length=16000, num_models=2)
     db = load_fasta_database(fasta_text(records), pad_multiple=1024,
                              is_text=True)
-    cfg = SsvKernelConfig(block_width=1024, rows_per_strip=8, interpret=True)
+    cfg = SsvKernelConfig(block_width=1024, rows_per_strip=8)
 
     def make():
-        e = Havac(p_value=P_VALUE, config=cfg, backend="pallas_interpret",
+        e = Havac(p_value=P_VALUE, config=cfg, backend="gpu_interpret",
                   chunk_symbols=2048, checkpoint_path=ckpt)
         return e.load_phmm(models).load_sequence(db)
 
@@ -464,7 +456,7 @@ def test_pipelined_checkpoint_resume(tmp_path):
     second.run()
     if _os.path.exists(ckpt) or second.resumed_chunks:
         pass  # resume exercised when the abort landed mid-run
-    whole = Havac(p_value=P_VALUE, config=cfg, backend="pallas_interpret")
+    whole = Havac(p_value=P_VALUE, config=cfg, backend="gpu_interpret")
     whole.load_phmm(models).load_sequence(db).run()
     assert_hits_equal(second.hits(), whole.hits())
     assert not _os.path.exists(ckpt)  # cleaned up on completion
@@ -478,10 +470,10 @@ def test_warmup_then_run_is_exact():
         seed=23, model_length=40, sequence_length=6000, num_models=2)
     db = load_fasta_database(fasta_text(records), pad_multiple=CFG.block_width,
                              is_text=True)
-    cold = Havac(p_value=P_VALUE, config=CFG, backend="pallas_interpret")
+    cold = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret")
     cold.load_phmm(models).load_sequence(db).run()
 
-    warm = Havac(p_value=P_VALUE, config=CFG, backend="pallas_interpret")
+    warm = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret")
     warm.load_phmm(models).load_sequence(db)
     warm.warmup()
     assert warm._warm_sweep is not None
@@ -502,7 +494,7 @@ def test_warmup_invalidated_by_reload():
         seed=29, model_length=32, sequence_length=4000, num_models=2)
     db = load_fasta_database(fasta_text(records), pad_multiple=CFG.block_width,
                              is_text=True)
-    eng = Havac(p_value=P_VALUE, config=CFG, backend="pallas_interpret")
+    eng = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret")
     with pytest.raises(HavacUsageError):
         eng.warmup()
     eng.load_phmm(models).load_sequence(db)
@@ -517,518 +509,166 @@ def test_warmup_invalidated_by_reload():
     assert_hits_equal(eng.hits(), oracle_resolved(eng))
 
 
-def test_record_cap_hint_is_per_geometry():
-    """Learned record caps must not leak across chunk geometries: a dense
-    small-chunk-count sweep (few fat chunks, huge per-chunk record counts)
-    taught the old GLOBAL hint a cap that oversized every later sweep's
-    compaction ~4x (the r4 150k table ran at cap 270336 vs ~62k actual
-    records/chunk; compaction scales ~linearly with cap). Hints are now
-    keyed by (rchunk, chunk) and transfer only within a geometry."""
-    from havac_tpu.engine import pipeline as pl_mod
-
-    models, records = generate_planted_fixture(
-        seed=29, model_length=40, sequence_length=6000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=CFG.block_width,
-                             is_text=True)
-    hint0 = dict(pl_mod._RECORD_CAP_HINTS)
-    try:
-        pl_mod._RECORD_CAP_HINTS.clear()
-        eng_a = Havac(p_value=P_VALUE, config=CFG,
-                      backend="pallas_interpret", chunk_symbols=2048)
-        eng_a.load_phmm(models).load_sequence(db)
-        sweep_a = eng_a._build_pipelined_sweep()
-        # Another sweep of a DIFFERENT geometry must not inherit a huge cap
-        # learned under sweep_a's key.
-        pl_mod._RECORD_CAP_HINTS[sweep_a._cap_key] = 1 << 20
-        eng_b = Havac(p_value=P_VALUE, config=CFG,
-                      backend="pallas_interpret", chunk_symbols=4096)
-        eng_b.load_phmm(models).load_sequence(db)
-        sweep_b = eng_b._build_pipelined_sweep()
-        assert sweep_b._cap_key != sweep_a._cap_key
-        assert sweep_b.record_cap < (1 << 20)
-        # ... while a SAME-geometry sweep starts at the learned cap.
-        eng_c = Havac(p_value=P_VALUE, config=CFG,
-                      backend="pallas_interpret", chunk_symbols=2048)
-        eng_c.load_phmm(models).load_sequence(db)
-        sweep_c = eng_c._build_pipelined_sweep()
-        assert sweep_c._cap_key == sweep_a._cap_key
-        assert sweep_c.record_cap == (1 << 20)
-    finally:
-        pl_mod._RECORD_CAP_HINTS.clear()
-        pl_mod._RECORD_CAP_HINTS.update(hint0)
-
-
 def test_record_cap_overflow_retry_pipelined():
     """A chunk whose hit records exceed the adaptive record cap must be
-    re-dispatched at a grown cap (drain_one's retry loop — which since the
-    donated-tile-buffer design re-dispatches with the in-chain buffers) and
-    still produce oracle-exact hits."""
-    from havac_tpu.engine import pipeline as pl_mod
-
+    re-dispatched from its retained inputs at a grown cap (drain_one's retry
+    loop) and still produce oracle-exact hits."""
     models, records = generate_planted_fixture(
         seed=23, model_length=40, sequence_length=6000, num_models=2)
     db = load_fasta_database(fasta_text(records), pad_multiple=CFG.block_width,
                              is_text=True)
-    engine = Havac(p_value=P_VALUE, config=CFG, backend="pallas_interpret",
+    engine = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret",
                    chunk_symbols=2048)
     engine.load_phmm(models).load_sequence(db)
-    hint0 = dict(pl_mod._RECORD_CAP_HINTS)
-    try:
-        pl_mod._RECORD_CAP_HINTS.clear()
-        sweep = engine._build_pipelined_sweep()
-        sweep.record_cap = 8  # force the overflow retry on real chunks
-        engine._warm_sweep = sweep
-        engine.run()
-        assert sweep.overflow_retries > 0
-        assert sweep.record_cap > 8
-        assert_hits_equal(engine.hits(), oracle_resolved(engine))
-    finally:
-        pl_mod._RECORD_CAP_HINTS.clear()
-        pl_mod._RECORD_CAP_HINTS.update(hint0)
+    sweep = engine._build_pipelined_sweep()
+    sweep.record_cap = 8  # force the overflow retry on real chunks
+    engine._warm_sweep = sweep
+    engine.run()
+    assert sweep.overflow_retries > 0
+    assert sweep.record_cap > 8
+    assert engine.stats.overflow_retries == sweep.overflow_retries
+    assert_hits_equal(engine.hits(), oracle_resolved(engine))
 
 
-SWAR_CFG = SsvKernelConfig.swar(block_width=3072, interpret=True)
-
-
-def test_swar_pipelined_end_to_end_matches_oracle():
-    """The production configuration — pipelined engine, SWAR kernel
-    (packing=3), fused kernel+compaction with donated tile buffers — at
-    interpret-mode geometry, chunked in both axes, vs the scalar oracle."""
+def test_gpu_pipelined_end_to_end_matches_oracle():
+    """The production configuration — pipelined engine, GPU kernel (here in
+    the Pallas interpreter) — chunked in both axes, vs the scalar oracle."""
     models, records = generate_planted_fixture(
         seed=41, model_length=40, sequence_length=15000, num_models=3)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
+    db = load_fasta_database(fasta_text(records), pad_multiple=1024,
                              is_text=True)
-    engine = Havac(p_value=P_VALUE, config=SWAR_CFG,
-                   backend="pallas_interpret", chunk_symbols=6144,
-                   chunk_rows=60)
+    engine = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret",
+                   chunk_symbols=6144, chunk_rows=48)
     engine.load_phmm(models).load_sequence(db).run()
     assert engine.stats.num_chunks > 1
     want = oracle_resolved(engine)
     assert len(want) > 0, "fixture must plant hits"
     assert_hits_equal(engine.hits(), want)
+    geo = engine.stats.chunk_geometry
+    assert geo["n_col"] * geo["n_row"] == engine.stats.num_chunks
 
 
-def test_swar_banded_drain_is_exact(monkeypatch):
-    """HAVAC_DRAIN_BANDS>1 (round-4: the kernel DMAs only DIRTY row bands of
-    each hit tile, leaving stale rows in skipped bands that only the count
-    sidecar may index around) must produce hits identical to the legacy
-    full-tile drain and the oracle. Needs WS>=16 so the band count is >1
-    (block_width 6144 -> WS=16 -> 2 bands); covers both the per-chunk and
-    the batched-pull flows."""
+@pytest.mark.parametrize("lookahead", [1, 2, 5])
+def test_pipelined_lookahead_depth_is_exact(monkeypatch, lookahead):
+    """Any number of chunks in flight gives the same hits."""
+    from havac.engine import pipeline as pl_mod
+
+    monkeypatch.setattr(pl_mod, "LOOKAHEAD", lookahead)
     models, records = generate_planted_fixture(
-        seed=47, model_length=40, sequence_length=15000, num_models=3)
-    db = load_fasta_database(fasta_text(records), pad_multiple=6144,
-                             is_text=True)
-    cfg = SsvKernelConfig.swar(block_width=6144, interpret=True)
-
-    def run(bands, pull_batch):
-        monkeypatch.setenv("HAVAC_DRAIN_BANDS", bands)
-        monkeypatch.setenv("HAVAC_PULL_BATCH", pull_batch)
-        e = Havac(p_value=P_VALUE, config=cfg, backend="pallas_interpret",
-                  chunk_symbols=12288, chunk_rows=60)
-        e.load_phmm(models).load_sequence(db)
-        sweep = e._build_pipelined_sweep()
-        assert sweep._drain_bands == int(bands)
-        e._warm_sweep = sweep
-        e.run()
-        return e
-
-    base = run("1", "0")
-    want = oracle_resolved(base)
-    assert len(want) > 0, "fixture must plant hits"
-    assert_hits_equal(base.hits(), want)
-    for pb in ("0", "4"):
-        banded = run("18", pb)
-        assert_hits_equal(banded.hits(), want)
+        seed=43, model_length=30, sequence_length=7000, num_models=2)
+    engine = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret",
+                   chunk_symbols=2048, chunk_rows=32)
+    engine.load_phmm(models).load_sequence(fasta_text(records), is_text=True)
+    engine.run()
+    assert engine.stats.chunk_geometry["lookahead"] == lookahead
+    assert_hits_equal(engine.hits(), oracle_resolved(engine))
 
 
-def test_swar_banded_drain_many_bands_sparse(monkeypatch):
-    """Banded drain with MANY effective bands and sparse hits: block_width
-    36864 -> WS=96 -> ws8=12 -> up to 12 bands, planted hits sparse enough
-    that most bands of a dirty flush are SKIPPED — exercising the dynamic
-    nb_ref-driven DMA accounting (fori_loop over per-slot dirty-band counts,
-    several same-semaphore copies in flight) that the 2-band case above
-    never reaches. Hardware exactness record at engine scale: identical
-    num_hits 10,621,064 across bands 1/18/42 on the real chip
-    (benchmarks/gatesweep150k_bands_v5e.json)."""
-    models, records = generate_planted_fixture(
-        seed=61, model_length=40, sequence_length=80000, num_models=2,
-        num_plants_per_model=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=36864,
-                             is_text=True)
-    cfg = SsvKernelConfig.swar(block_width=36864, interpret=True)
+def test_pipelined_geometry_pads_to_uniform_chunks():
+    """Every chunk has one shape: the last row and column chunks are padded
+    (pad rows score -128, pad positions are dropped at resolution)."""
+    from havac.engine.pipeline import PipelinedSweep
 
-    def run(bands, pull_batch):
-        monkeypatch.setenv("HAVAC_DRAIN_BANDS", bands)
-        monkeypatch.setenv("HAVAC_PULL_BATCH", pull_batch)
-        e = Havac(p_value=P_VALUE, config=cfg, backend="pallas_interpret",
-                  chunk_symbols=36864, chunk_rows=60)
-        e.load_phmm(models).load_sequence(db)
-        sweep = e._build_pipelined_sweep()
-        assert sweep._drain_bands == int(bands)
-        e._warm_sweep = sweep
-        e.run()
-        return e
-
-    base = run("1", "0")
-    want = oracle_resolved(base)
-    assert len(want) > 0, "fixture must plant hits"
-    assert_hits_equal(base.hits(), want)
-    for bands, pb in (("12", "0"), ("12", "4"), ("5", "0")):
-        banded = run(bands, pb)
-        assert_hits_equal(banded.hits(), want)
+    codes = np.zeros(10_000, dtype=np.uint8)
+    scores = np.zeros((70, 4), dtype=np.int8)
+    sweep = PipelinedSweep(codes, scores, chunk_symbols=4096, chunk_rows=32,
+                           align=512, interpret=True)
+    assert (sweep.n_col, sweep.n_row) == (3, 3)
+    assert sweep.chunk % 512 == 0 and sweep.n_col * sweep.chunk >= 10_000
+    assert sweep.rchunk == 24  # 70 rows in three uniform chunks
+    assert all(s.shape == (24, 4) for s in sweep._scores_dev)
+    assert (np.asarray(sweep._scores_dev[-1])[70 - 48:] == -128).all()
+    assert sweep._codes_dev.shape == (sweep.n_col * sweep.chunk,)
 
 
-def test_swar_pipelined_unfused_knob_is_exact(monkeypatch):
-    """HAVAC_FUSE=0 (two-dispatch round-2 flow, the fusebench A/B knob)
-    must produce hits identical to the fused default."""
-    models, records = generate_planted_fixture(
-        seed=43, model_length=32, sequence_length=9000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-
-    def run():
-        e = Havac(p_value=P_VALUE, config=SWAR_CFG,
-                  backend="pallas_interpret", chunk_symbols=6144,
-                  chunk_rows=60)
-        e.load_phmm(models).load_sequence(db).run()
-        return e
-
-    fused = run()
-    monkeypatch.setenv("HAVAC_FUSE", "0")
-    unfused = run()
-    assert_hits_equal(fused.hits(), unfused.hits())
-    assert_hits_equal(fused.hits(), oracle_resolved(fused))
-
-
-def test_swar_pipelined_nodonate_knob_is_exact(monkeypatch):
-    """HAVAC_DONATE=0 (fused executable with internal temp hit buffers —
-    the donation-cost A/B knob) must produce hits identical to the
-    donated default, with and without slice-pull."""
-    models, records = generate_planted_fixture(
-        seed=59, model_length=32, sequence_length=9000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-
-    def run():
-        e = Havac(p_value=P_VALUE, config=SWAR_CFG,
-                  backend="pallas_interpret", chunk_symbols=6144,
-                  chunk_rows=60)
-        e.load_phmm(models).load_sequence(db).run()
-        return e
-
-    default = run()
-    monkeypatch.setenv("HAVAC_DONATE", "0")
-    nodonate = run()
-    monkeypatch.setenv("HAVAC_SLICE_PULL", "0")
-    nodonate_packed = run()
-    assert_hits_equal(default.hits(), nodonate.hits())
-    assert_hits_equal(default.hits(), nodonate_packed.hits())
-    assert_hits_equal(default.hits(), oracle_resolved(default))
-
-
-def test_swar_pipelined_slice_pull_knob_is_exact(monkeypatch):
-    """HAVAC_SLICE_PULL=0 (cap-sized packed-vector pulls, the pre-round-3
-    layout) must produce hits identical to the slice-pull default, in both
-    fused and two-dispatch flows."""
-    models, records = generate_planted_fixture(
-        seed=47, model_length=32, sequence_length=9000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-
-    def run():
-        e = Havac(p_value=P_VALUE, config=SWAR_CFG,
-                  backend="pallas_interpret", chunk_symbols=6144,
-                  chunk_rows=60)
-        e.load_phmm(models).load_sequence(db).run()
-        return e
-
-    default = run()
-    monkeypatch.setenv("HAVAC_SLICE_PULL", "0")
-    legacy = run()
-    monkeypatch.setenv("HAVAC_FUSE", "0")
-    legacy_unfused = run()
-    assert_hits_equal(default.hits(), legacy.hits())
-    assert_hits_equal(default.hits(), legacy_unfused.hits())
-    assert_hits_equal(default.hits(), oracle_resolved(default))
-
-
-def test_swar_pipelined_pull_batch_knob_is_exact(monkeypatch):
-    """HAVAC_PULL_BATCH (batched device-side record accumulation, default 8)
-    must produce hits identical to legacy per-chunk pulls (0) at batch
-    sizes that seal mid-run (2) and never fill (64, one partial batch) —
-    exercising the dynamic_update_slice append, the host-side offset
-    reconstruction, partial-batch sealing, and buffer recycling."""
-    models, records = generate_planted_fixture(
-        seed=61, model_length=32, sequence_length=9000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-
-    def run():
-        e = Havac(p_value=P_VALUE, config=SWAR_CFG,
-                  backend="pallas_interpret", chunk_symbols=6144,
-                  chunk_rows=60)
-        e.load_phmm(models).load_sequence(db).run()
-        return e
-
-    default = run()
-    # AUTO pull batch: 24 across the board since the round-5 bands=1 +
-    # delta16 wire made per-batch pulls cheap (interleaved gatesweep A/Bs;
-    # see PipelinedSweep.__init__).
-    geom = default.stats.chunk_geometry
-    assert geom["pull_batch"] == 24
-    assert default.stats.num_chunks > 2  # partial batch at the end
-    monkeypatch.setenv("HAVAC_PULL_BATCH", "0")
-    legacy = run()
-    assert legacy.stats.chunk_geometry["pull_batch"] == 0
-    monkeypatch.setenv("HAVAC_PULL_BATCH", "2")
-    kb2 = run()
-    monkeypatch.setenv("HAVAC_PULL_BATCH", "64")
-    kb64 = run()
-    assert_hits_equal(default.hits(), legacy.hits())
-    assert_hits_equal(default.hits(), kb2.hits())
-    assert_hits_equal(default.hits(), kb64.hits())
-    assert_hits_equal(default.hits(), oracle_resolved(default))
-
-
-def test_swar_pipelined_pull_batch_overflow_redispatch(monkeypatch):
-    """A record cap far below the workload's density must converge via the
-    batched flow's overflow redispatch (truncated in-batch records are
-    regenerated by a single-chunk batch at the grown cap) without losing
-    or duplicating hits."""
-    import havac_tpu.engine.pipeline as pl
-
-    models, records = generate_planted_fixture(
-        seed=67, model_length=32, sequence_length=9000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-
-    def run():
-        e = Havac(p_value=P_VALUE, config=SWAR_CFG,
-                  backend="pallas_interpret", chunk_symbols=6144,
-                  chunk_rows=60)
-        e.load_phmm(models).load_sequence(db).run()
-        return e
-
-    want = run()  # converged-cap reference
-    monkeypatch.setattr(pl, "_RECORD_CAP_HINTS", {})
-    monkeypatch.setenv("HAVAC_PULL_BATCH", "4")
-    got = Havac(p_value=P_VALUE, config=SWAR_CFG,
-                backend="pallas_interpret", chunk_symbols=6144,
-                chunk_rows=60)
-    got.load_phmm(models).load_sequence(db)
-    sweep = got._build_pipelined_sweep()
-    assert sweep._pull_batch == 4
-    sweep.record_cap = 16  # far below density: every chunk overflows
-    got._warm_sweep = sweep
-    got.run()
-    assert sweep.overflow_retries > 0
-    assert sweep.record_cap > 16
-    assert_hits_equal(want.hits(), got.hits())
-
-
-def test_swar_pipelined_rec_pack_knob_is_exact(monkeypatch):
-    """HAVAC_REC_PACK (delta16 record wire layout of the batched flow:
-    words + 16-bit idx deltas two-per-int32 + bounded escape list, the
-    round-5 default) must produce hits identical to the legacy interleaved
-    (idx, word) pairs (HAVAC_REC_PACK=0), across batch sizes that seal
-    mid-run, at a dense p-value so chunks carry many records."""
-    models, records = generate_planted_fixture(
-        seed=73, model_length=32, sequence_length=9000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-
-    def run():
-        e = Havac(p_value=0.3, config=SWAR_CFG, backend="pallas_interpret",
-                  chunk_symbols=6144, chunk_rows=60)
-        e.load_phmm(models).load_sequence(db).run()
-        return e
-
-    monkeypatch.setenv("HAVAC_PULL_BATCH", "2")
-    packed = run()
-    assert packed.stats.num_raw_hits > 300
-    monkeypatch.setenv("HAVAC_REC_PACK", "0")
-    legacy = run()
-    assert_hits_equal(packed.hits(), legacy.hits())
-    assert_hits_equal(packed.hits(), oracle_resolved(packed))
-
-
-def test_swar_pipelined_keyform_knob_is_exact(monkeypatch, tmp_path):
-    """HAVAC_KEYFORM (round 5: the fused native chunk-hit path — records →
-    sorted uint64 keys → int32 resolved columns in one native pass) must
-    produce hits, raw hits, and stats identical to the legacy numpy
-    decode/keep/resolve chain (HAVAC_KEYFORM=0), at a dense p-value, and a
-    checkpoint written under one form must resume exactly under the other."""
-    from havac_tpu import native
-
-    if not native.available():  # pragma: no cover - toolchain-less host
-        import pytest
-
-        pytest.skip("native core unavailable")
-    models, records = generate_planted_fixture(
-        seed=79, model_length=32, sequence_length=9000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-
-    def run(**kw):
-        e = Havac(p_value=0.3, config=SWAR_CFG, backend="pallas_interpret",
-                  chunk_symbols=6144, chunk_rows=60, **kw)
-        e.load_phmm(models).load_sequence(db).run()
-        return e
-
-    keyed = run()
-    assert keyed.stats.num_raw_hits > 300
-    probe = Havac(p_value=0.3, config=SWAR_CFG, backend="pallas_interpret",
-                  chunk_symbols=6144, chunk_rows=60)
-    probe.load_phmm(models).load_sequence(db)
-    assert probe._build_pipelined_sweep()._keyform  # the path under test ran
-    monkeypatch.setenv("HAVAC_KEYFORM", "0")
-    legacy = run()
-    monkeypatch.delenv("HAVAC_KEYFORM")
-    assert_hits_equal(keyed.hits(), legacy.hits())
-    assert_hits_equal(keyed.hits(), oracle_resolved(keyed))
-    kr, kp = keyed.raw_hits()
-    lr, lp = legacy.raw_hits()
-    np.testing.assert_array_equal(kr, lr)
-    np.testing.assert_array_equal(kp, lp)
-    assert keyed.stats.num_raw_hits == legacy.stats.num_raw_hits
-    # int32 columns on the key-form path (the point of the redesign);
-    # int64 on the legacy path.
-    assert keyed.hits().sequence_index.dtype == np.int32
-    assert legacy.hits().sequence_index.dtype == np.int64
-
-    # Checkpoint written by the LEGACY form resumes under the key form
-    # (payloads are int64 (rows, pos) regardless of knob).
-    import os as _os
-    import time as _time
-
-    ckpt = str(tmp_path / "kf.npz")
-    monkeypatch.setenv("HAVAC_KEYFORM", "0")
-    partial = Havac(p_value=0.3, config=SWAR_CFG,
-                    backend="pallas_interpret", chunk_symbols=6144,
-                    chunk_rows=60, checkpoint_path=ckpt)
-    partial.load_phmm(models).load_sequence(db)
-    partial.run_async()
-    for _ in range(4000):
-        if _os.path.exists(ckpt):
-            break
-        _time.sleep(0.005)
-    partial.abort()
-    partial.wait()
-    monkeypatch.delenv("HAVAC_KEYFORM")
-    resumed = run(checkpoint_path=ckpt)
-    assert_hits_equal(keyed.hits(), resumed.hits())
-
-
-def test_compact_piecewise_matches_dense_scan():
-    """The piecewise (while_loop) compaction search must emit exactly the
-    nonzero words of the live tiles in flat-index order across every
-    regime: sparse (1 piece), dense multi-piece, EMPTY (zero pieces run),
-    and cap overflow (the truncated prefix must still be exact — the host
-    redispatches at a grown cap)."""
-    import jax.numpy as jnp
-
-    import havac_tpu.engine.pipeline as pl
-
-    rng = np.random.default_rng(9)
-    maxt, WS = 600, 16
-    C = WS // 8
-
-    def make(density):
-        tiles = np.zeros((maxt, WS, 128), np.int32)
-        cnts = np.zeros((maxt, 8, 128), np.int32)
-        count = 550
-        nz = rng.random((count, WS, 128)) < density
-        tiles[:count] = np.where(
-            nz, rng.integers(1, 1 << 30, (count, WS, 128)), 0)
-        cnts[:, :, :C] = (tiles != 0).sum(axis=2).reshape(maxt, 8, C)
-        return jnp.asarray(tiles), jnp.asarray(cnts), jnp.int32(count)
-
-    def reference_records(tiles, count):
-        flat = np.asarray(tiles)[:int(count)].reshape(int(count), -1)
-        out = []
-        for s in range(int(count)):
-            for i in np.nonzero(flat[s])[0]:
-                out.append((s * WS * 128 + i, flat[s][i]))
-        return out
-
-    # Shrink the piece so the multi-piece path runs at test scale.
-    old = pl._COMPACT_PIECE
-    pl._COMPACT_PIECE = 4096
-    try:
-        for density, cap in [(0.002, 2048), (0.02, 1 << 14), (0.08, 1 << 16),
-                             (0.0, 2048), (0.08, 1 << 13)]:
-            tiles, cnts, count = make(density)
-            nrec_t, idx, words = pl._compact_tiles_core(tiles, cnts, count,
-                                                        cap)
-            nrec = int(nrec_t)
-            ref = reference_records(tiles, count)
-            assert nrec == len(ref)
-            m = min(nrec, cap)
-            got = list(zip(np.asarray(idx)[:m].tolist(),
-                           np.asarray(words)[:m].tolist()))
-            assert got == ref[:m], (density, cap)
-            if nrec < cap:
-                assert np.all(np.asarray(idx)[nrec:] == -1)
-                assert np.all(np.asarray(words)[nrec:] == 0)
-    finally:
-        pl._COMPACT_PIECE = old
-
-
-def test_compact_packed16_roundtrip_with_escapes():
-    """_compact_tiles_packed16 → unpack_delta16 must reconstruct the exact
-    (idx, word) records of _compact_tiles_split, including records whose
-    idx gap exceeds the 16-bit delta field (forced by planting hits in
-    widely separated tiles)."""
-    import jax.numpy as jnp
-
-    from havac_tpu.engine.pipeline import (_compact_tiles_packed16,
-                                           _compact_tiles_split,
-                                           unpack_delta16)
+def test_amino_collection_on_xla_path():
+    """A card-20 collection through the serial XLA loop, chunked in rows
+    (the scores padding follows the alphabet's width)."""
+    from havac.testing.generator import model_from_consensus
 
     rng = np.random.default_rng(5)
-    maxt, WS = 600, 16  # idx range 600·16·128 = 1,228,800 >> 0xFFFF
-    tiles = np.zeros((maxt, WS, 128), dtype=np.int32)
-    cnts = np.zeros((maxt, 8, 128), dtype=np.int32)
-    C = WS // 8
-    count = 550
-    for slot in rng.choice(count, size=40, replace=False):
-        i, g, lane = rng.integers(8), rng.integers(C), rng.integers(128)
-        tiles[slot, i * C + g, lane] = int(rng.integers(1, 1 << 30))
-        cnts[slot, i, g] += 0  # recomputed below
-    nz = (tiles.reshape(maxt, 8, C, 128) != 0).sum(axis=3)
-    cnts[:, :, :C] = nz
-    ometa = np.arange(maxt, dtype=np.int32)
-    cap = 64
-    args = (jnp.asarray(tiles), jnp.asarray(cnts), jnp.asarray(ometa),
-            jnp.asarray(np.int32(count)))
-    hdr_s, rec_s = _compact_tiles_split(*args, cap=cap)
-    hdr_p, words_p, dpk, escv = _compact_tiles_packed16(*args, cap=cap)
-    n = int(hdr_s[0])
-    assert n > 0 and int(hdr_p[0]) == n
-    n_esc = int(hdr_p[2])
-    assert n_esc > 0, "fixture must force 16-bit escapes"
-    seg = np.concatenate([np.asarray(words_p)[:n],
-                          np.asarray(dpk)[:(n + 1) // 2],
-                          np.asarray(escv)[:n_esc]])
-    idx, words = unpack_delta16(seg, n, n_esc)
-    pairs = np.asarray(rec_s)[:2 * n]
-    np.testing.assert_array_equal(idx, pairs[0::2].astype(np.int64))
-    np.testing.assert_array_equal(words, pairs[1::2])
+    models = [model_from_consensus(rng.integers(0, 20, size=n).astype(np.uint8),
+                                   name=f"p{i}", alphabet="amino")
+              for i, n in enumerate((30, 21))]
+    seq = "".join("ACDEFGHIKLMNPQRSTVWY"[c]
+                  for c in rng.integers(0, 20, size=1500))
+    fasta = ">prot\n" + seq + "\n"
+    xla = Havac(p_value=0.5, config=CFG, backend="xla", chunk_rows=24)
+    xla.load_phmm(models).load_sequence(fasta, is_text=True).run()
+    assert xla.alphabet == "amino" and xla.stats.num_chunks > 1
+    gpu = Havac(p_value=0.5, config=CFG, backend="gpu_interpret",
+                chunk_rows=24)
+    gpu.load_phmm(models).load_sequence(fasta, is_text=True).run()
+    want = oracle_resolved(xla)
+    assert len(want) > 0
+    assert_hits_equal(xla.hits(), want)
+    assert_hits_equal(gpu.hits(), want)
 
 
-def test_swar_pipelined_dense_iota_header_path():
-    """A hit-saturated workload (permissive p-value) drives chunks into the
-    batched drain's dense fast path (count == ntiles: slots in grid order,
-    ometa reconstructed as iota host-side and never pulled) — hits must
-    still match the oracle exactly. Mixed dense/sparse chunks also cover
-    the full-header fallback in the same run."""
+@pytest.mark.parametrize("requested,platform,want", [
+    ("auto", "cpu", "xla"),
+    ("auto", "gpu", "gpu"),
+    ("gpu", "gpu", "gpu"),
+    ("xla", "gpu", "xla"),
+    ("gpu_interpret", "cpu", "gpu_interpret"),
+    ("gpu", "cpu", HavacUsageError),
+    ("auto", "rocm", HavacUsageError),
+    ("pallas", "cpu", HavacUsageError),
+])
+def test_pick_backend(monkeypatch, requested, platform, want):
+    """auto → the GPU kernel on a GPU and the XLA reference on the CPU; an
+    explicit gpu request never falls back; anything else is an error."""
+    import jax
+
+    from havac.engine.api import _pick_backend
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    if want is HavacUsageError:
+        with pytest.raises(HavacUsageError):
+            _pick_backend(requested)
+    else:
+        assert _pick_backend(requested) == want
+
+
+def test_sequence_by_model_mesh_is_rejected():
+    import jax
+    from jax.sharding import Mesh
+
+    devs = np.array(jax.devices()[:4]).reshape(2, 2)
     models, records = generate_planted_fixture(
-        seed=71, model_length=32, sequence_length=6000, num_models=2)
-    db = load_fasta_database(fasta_text(records), pad_multiple=3072,
-                             is_text=True)
-    e = Havac(p_value=0.5, config=SWAR_CFG, backend="pallas_interpret",
-              chunk_symbols=6144, chunk_rows=60)
-    e.load_phmm(models).load_sequence(db).run()
-    assert e.stats.num_raw_hits > 1000  # saturated regime
-    assert_hits_equal(e.hits(), oracle_resolved(e))
+        seed=3, model_length=20, sequence_length=2000, num_models=2)
+    e = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret",
+              mesh=Mesh(devs, ("seq", "model")))
+    e.load_phmm(models).load_sequence(fasta_text(records), is_text=True)
+    with pytest.raises(HavacUsageError, match="sequence × model"):
+        e.run()
+
+
+def test_pipelined_abort_mid_run_then_recover():
+    """abort() on the pipelined GPU path stops at a chunk boundary; a fresh
+    run afterwards is complete and exact."""
+    models, records = generate_planted_fixture(
+        seed=47, model_length=24, sequence_length=12000, num_models=2)
+    engine = Havac(p_value=P_VALUE, config=CFG, backend="gpu_interpret",
+                   chunk_symbols=1024)
+    engine.load_phmm(models).load_sequence(fasta_text(records), is_text=True)
+    seen = []
+
+    class AbortAfterTwo:
+        def is_set(self):
+            seen.append(1)
+            return len(seen) > 2
+
+        def set(self):
+            pass
+
+        def clear(self):
+            pass
+
+    engine._abort_event = AbortAfterTwo()
+    engine.run_async()
+    assert engine.wait() == HavacRunState.ABORTED
+    engine._abort_event = __import__("threading").Event()
+    engine.run()
+    assert engine.progress == 1.0
+    assert_hits_equal(engine.hits(), oracle_resolved(engine))

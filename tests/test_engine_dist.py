@@ -13,13 +13,16 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from havac_tpu.engine import Havac, HavacUsageError
-from havac_tpu.io.fasta import load_fasta_database
-from havac_tpu.ops.common import SsvKernelConfig
-from havac_tpu.ops.reference import ssv_reference
-from havac_tpu.parallel.engine_dist import ssv_distributed
-from havac_tpu.scoring.reprojection import project_models
-from havac_tpu.testing.generator import generate_planted_fixture
+from havac.engine import Havac, HavacUsageError
+from havac.io.fasta import load_fasta_database
+from havac.ops.common import SsvKernelConfig
+from havac.ops.reference import ssv_reference
+from havac.parallel.engine_dist import ssv_distributed
+from havac.scoring.reprojection import project_models
+from havac.testing.generator import generate_planted_fixture
+
+
+CFG = SsvKernelConfig(block_width=1024, rows_per_strip=8)
 
 
 def mesh8():
@@ -52,14 +55,14 @@ def test_distributed_chains_cross_seams_and_chunks():
 
 
 def test_distributed_hit_capacity_overflow():
-    from havac_tpu.ops.common import HitTileOverflow
-    from havac_tpu.parallel.engine_dist import DistributedSweep
+    from havac.ops.common import HitRecordOverflow
+    from havac.parallel.engine_dist import DistributedSweep
 
     codes = np.zeros(1024, dtype=np.uint8)
     scores = np.full((32, 4), 127, dtype=np.int8)  # hits everywhere
     sweep = DistributedSweep(codes, mesh8(), rows_per_step=32,
                              rows_per_call=32, hit_capacity=4)
-    with pytest.raises(HitTileOverflow):
+    with pytest.raises(HitRecordOverflow):
         sweep.sweep_rows(scores, 0)
 
 
@@ -72,142 +75,60 @@ def test_engine_mesh_end_to_end():
     dist.load_phmm(models).load_sequence(fasta, is_text=True).run()
     assert dist.stats.num_chunks == 3  # 192 rows / 64
     single = Havac(p_value=0.05, backend="xla",
-                   config=SsvKernelConfig(block_width=1024, rows_per_strip=8,
-                                          interpret=True))
+                   config=SsvKernelConfig(block_width=1024, rows_per_strip=8))
     single.load_phmm(models).load_sequence(fasta, is_text=True).run()
     assert len(dist.hits()) > 0
     assert sorted(dist.hits().as_tuples()) == sorted(single.hits().as_tuples())
 
 
-def test_engine_mesh_swar_backend():
-    """Mesh + SWAR backend routes through the Pallas wavefront path."""
-    from havac_tpu.ops.common import SsvKernelConfig
-
+def test_engine_mesh_gpu_backend():
+    """Mesh + GPU backend routes through the kernel wavefront path."""
     models, records = generate_planted_fixture(
         seed=47, model_length=40, sequence_length=30000, num_models=2)
     fasta = "".join(f">{n}\n{s}\n" for n, s in records)
-    cfg = SsvKernelConfig.swar(block_width=3072, interpret=True)
-    dist = Havac(p_value=0.05, backend="pallas_interpret", config=cfg,
+    dist = Havac(p_value=0.05, backend="gpu_interpret", config=CFG,
                  mesh=mesh8())
     dist.load_phmm(models).load_sequence(fasta, is_text=True).run()
-    single = Havac(p_value=0.05, backend="xla",
-                   config=SsvKernelConfig(block_width=1024, rows_per_strip=8,
-                                          interpret=True))
+    single = Havac(p_value=0.05, backend="xla", config=CFG)
     single.load_phmm(models).load_sequence(fasta, is_text=True).run()
     assert len(dist.hits()) > 0
     assert sorted(dist.hits().as_tuples()) == sorted(single.hits().as_tuples())
+    assert dist.stats.pipeline_prof is not None
 
 
-def test_engine_mesh_2d_checkpoint_resume(tmp_path):
-    """Engine-level 2D (seq × model) mesh checkpoint/resume: an aborted 2D
-    run restarted with the same inputs resumes from the wavefront-step
-    checkpoint and produces identical hits. Deterministic: the wrapped
-    callback aborts right after the first checkpoint write, and the tiny
-    tile budget forces R=30 so T = S + D_seq - 1 > ckpt_every."""
-    import os as _os
-
-    from havac_tpu.engine import HavacRunState
-    from havac_tpu.ops.common import SsvKernelConfig
-
-    ckpt = str(tmp_path / "mesh2d.ckpt.npz")
+def test_engine_mesh_gpu_isolation():
+    """isolate_models on the GPU mesh path matches the isolated
+    single-device run."""
     models, records = generate_planted_fixture(
         seed=53, model_length=30, sequence_length=20000, num_models=4)
     fasta = "".join(f">{n}\n{s}\n" for n, s in records)
-    devs = np.array(jax.devices()[:8]).reshape(4, 2)
-    mesh2 = Mesh(devs, ("seq", "model"))
-    cfg = SsvKernelConfig.swar(block_width=3072, interpret=True,
-                               tile_budget_bytes=49152)
-
-    def make():
-        e = Havac(p_value=0.05, backend="pallas_interpret", config=cfg,
-                  mesh=mesh2, isolate_models=True, checkpoint_path=ckpt)
-        return e.load_phmm(models).load_sequence(fasta, is_text=True)
-
-    first = make()
-    orig_hooks = first._mesh2d_checkpoint_hooks
-
-    def hooks(sweep2d, P):
-        cb, resume, path = orig_hooks(sweep2d, P)
-        assert cb is not None
-
-        def cb_then_abort(*args):
-            cb(*args)
-            first._abort_event.set()
-
-        return cb_then_abort, resume, path
-
-    first._mesh2d_checkpoint_hooks = hooks
-    first.run_async()
-    first.wait()
-    assert first.state == HavacRunState.ABORTED
-    assert _os.path.exists(ckpt)
-
-    second = make()
-    second.run()
-    if _os.path.exists(ckpt + ".tmp.npz"):
-        _os.remove(ckpt + ".tmp.npz")
-    assert second.resumed_chunks > 0  # the resume machinery actually ran
-    assert not _os.path.exists(ckpt)  # cleaned up on completion
-
-    single = Havac(p_value=0.05, backend="xla",
-                   config=SsvKernelConfig(block_width=1024, rows_per_strip=8,
-                                          interpret=True),
-                   isolate_models=True)
-    single.load_phmm(models).load_sequence(fasta, is_text=True).run()
-    assert len(single.hits()) > 0
-    assert sorted(second.hits().as_tuples()) == sorted(
-        single.hits().as_tuples())
-
-
-def test_engine_mesh_2d_swar():
-    """2D mesh + isolate_models routes through Swar2DSweep, exact vs the
-    isolated single-device run."""
-    from havac_tpu.ops.common import SsvKernelConfig
-
-    models, records = generate_planted_fixture(
-        seed=53, model_length=30, sequence_length=20000, num_models=4)
-    fasta = "".join(f">{n}\n{s}\n" for n, s in records)
-    devs = np.array(jax.devices()[:8]).reshape(4, 2)
-    mesh2 = Mesh(devs, ("seq", "model"))
-    cfg = SsvKernelConfig.swar(block_width=3072, interpret=True)
-    dist = Havac(p_value=0.05, backend="pallas_interpret", config=cfg,
-                 mesh=mesh2, isolate_models=True)
+    dist = Havac(p_value=0.05, backend="gpu_interpret", config=CFG,
+                 mesh=mesh8(), isolate_models=True)
     dist.load_phmm(models).load_sequence(fasta, is_text=True).run()
-
-    single = Havac(p_value=0.05, backend="xla",
-                   config=SsvKernelConfig(block_width=1024, rows_per_strip=8,
-                                          interpret=True),
+    single = Havac(p_value=0.05, backend="xla", config=CFG,
                    isolate_models=True)
     single.load_phmm(models).load_sequence(fasta, is_text=True).run()
     assert len(dist.hits()) > 0
     assert sorted(dist.hits().as_tuples()) == sorted(single.hits().as_tuples())
 
-    # Without isolation the 2D path must refuse.
-    bad = Havac(p_value=0.05, backend="pallas_interpret", config=cfg,
-                mesh=mesh2)
-    bad.load_phmm(models).load_sequence(fasta, is_text=True)
-    with pytest.raises(HavacUsageError):
-        bad.run()
 
-
-def test_engine_mesh_fallback_to_xla_on_budget():
-    """A tile budget too small for the SWAR mesh path falls back to the XLA
-    wavefront instead of erroring."""
-    from havac_tpu.ops.common import SsvKernelConfig
+def test_engine_mesh_xla_refuses_isolation_and_amino():
+    """The XLA wavefront has neither model isolation nor amino support: it
+    raises instead of silently changing the result."""
+    from havac.testing.generator import model_from_consensus
 
     models, records = generate_planted_fixture(
-        seed=59, model_length=24, sequence_length=20000, num_models=2)
+        seed=59, model_length=24, sequence_length=4000, num_models=2)
     fasta = "".join(f">{n}\n{s}\n" for n, s in records)
-    cfg = SsvKernelConfig.swar(block_width=3072, interpret=True)
-    cfg = __import__("dataclasses").replace(cfg, tile_budget_bytes=1024)
-    dist = Havac(p_value=0.05, backend="pallas_interpret", config=cfg,
-                 mesh=mesh8(), dist_rows_per_step=32)
-    dist.load_phmm(models).load_sequence(fasta, is_text=True).run()
-    single = Havac(p_value=0.05, backend="xla",
-                   config=SsvKernelConfig(block_width=1024, rows_per_strip=8,
-                                          interpret=True))
-    single.load_phmm(models).load_sequence(fasta, is_text=True).run()
-    assert sorted(dist.hits().as_tuples()) == sorted(single.hits().as_tuples())
+    iso = Havac(p_value=0.05, backend="xla", config=CFG, mesh=mesh8(),
+                isolate_models=True)
+    iso.load_phmm(models).load_sequence(fasta, is_text=True)
+    with pytest.raises(NotImplementedError):
+        iso.run()
+    amino = model_from_consensus(np.arange(20, dtype=np.uint8), name="p",
+                                 alphabet="amino")
+    with pytest.raises(HavacUsageError, match="amino"):
+        Havac(backend="xla", config=CFG, mesh=mesh8()).load_phmm([amino])
 
 
 def test_engine_mesh_checkpoint_resume(tmp_path):
@@ -216,17 +137,14 @@ def test_engine_mesh_checkpoint_resume(tmp_path):
     file and produces identical hits."""
     import os as _os
 
-    from havac_tpu.engine import HavacRunState
-    from havac_tpu.ops.common import SsvKernelConfig
+    from havac.engine import HavacRunState
 
     ckpt = str(tmp_path / "mesh.ckpt.npz")
     models, records = generate_planted_fixture(
         seed=61, model_length=40, sequence_length=30000, num_models=2)
     fasta = "".join(f">{n}\n{s}\n" for n, s in records)
-    cfg = SsvKernelConfig.swar(block_width=3072, interpret=True)
-
     def make():
-        e = Havac(p_value=0.05, backend="pallas_interpret", config=cfg,
+        e = Havac(p_value=0.05, backend="gpu_interpret", config=CFG,
                   mesh=mesh8(), checkpoint_path=ckpt)
         return e.load_phmm(models).load_sequence(fasta, is_text=True)
 
@@ -260,9 +178,7 @@ def test_engine_mesh_checkpoint_resume(tmp_path):
     assert second.resumed_chunks > 0  # the resume machinery actually ran
     assert not _os.path.exists(ckpt)  # cleaned up on completion
 
-    single = Havac(p_value=0.05, backend="xla",
-                   config=SsvKernelConfig(block_width=1024, rows_per_strip=8,
-                                          interpret=True))
+    single = Havac(p_value=0.05, backend="xla", config=CFG)
     single.load_phmm(models).load_sequence(fasta, is_text=True).run()
     assert sorted(second.hits().as_tuples()) == sorted(
         single.hits().as_tuples())

@@ -3,20 +3,20 @@
 import numpy as np
 import pytest
 
-from havac_tpu.io.fasta import (
+from havac.io.fasta import (
     encode_database,
     load_fasta_database,
     pack_2bit,
     parse_fasta_text,
     unpack_2bit,
 )
-from havac_tpu.io.hmm import (
+from havac.io.hmm import (
     HmmFormatError,
     model_length_prefix_sums,
     read_hmm_text,
     write_hmm,
 )
-from havac_tpu.testing.generator import model_from_consensus
+from havac.testing.generator import model_from_consensus
 
 import io as _io
 

@@ -11,10 +11,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from havac_tpu import native
-from havac_tpu.io.fasta import load_fasta_database
-from havac_tpu.io.hmm import read_hmm, write_hmm
-from havac_tpu.testing.generator import generate_planted_fixture
+from havac import native
+from havac.io.fasta import load_fasta_database
+from havac.io.hmm import read_hmm, write_hmm
+from havac.testing.generator import generate_planted_fixture
 
 
 @pytest.fixture(scope="session", autouse=True)
@@ -143,89 +143,8 @@ def test_asan_selftest_on_malformed_inputs(tmp_path):
     assert "ERROR" in out  # malformed inputs reported, not crashed
 
 
-def _numpy_decode_swar_flat(ids, widx, words, num_strips, block_words):
-    """The pre-native numpy reference decode (kept for parity testing)."""
-    from havac_tpu.ops.common import hit_sort_order
-    from havac_tpu.ops.ssv_swar import ROWS_PER_FLUSH, ROWS_PER_STRIP
-
-    words = np.asarray(words).view(np.uint32)
-    flat = np.asarray(ids, dtype=np.int64)
-    widx = np.asarray(widx, dtype=np.int64)
-    W3 = block_words
-    W = 3 * W3
-    nf = ROWS_PER_FLUSH
-    flush = flat % 3
-    bs = flat // 3
-    blocks = bs // num_strips
-    strips = bs % num_strips
-    row_base = strips * ROWS_PER_STRIP + flush * nf
-    rows_out, pos_out = [], []
-    for f in range(3):
-        for r in range(nf):
-            sel = ((words >> np.uint32(10 * f + nf - 1 - r))
-                   & np.uint32(1)).astype(bool)
-            if sel.any():
-                rows_out.append(row_base[sel] + r)
-                pos_out.append(blocks[sel] * W + f * W3 + widx[sel])
-    if not rows_out:
-        return (np.empty(0, dtype=np.int64),) * 2
-    rows = np.concatenate(rows_out)
-    positions = np.concatenate(pos_out)
-    order = hit_sort_order(rows, positions)
-    return rows[order], positions[order]
-
-
-def test_native_decode_swar_flat_parity():
-    rng = np.random.default_rng(5)
-    n = 5000
-    num_strips, W3 = 7, 1024
-    ids = rng.integers(0, 4 * num_strips * 3, size=n)
-    widx = rng.integers(0, W3, size=n)
-    words = rng.integers(0, 1 << 30, size=n).astype(np.int32)
-    words[rng.random(n) < 0.3] = 0  # empty records occur
-    got = native.decode_swar_flat_native(ids, widx, words, num_strips, W3)
-    assert got is not None
-    want = _numpy_decode_swar_flat(ids, widx, words, num_strips, W3)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
-
-
-def test_native_decode_swar_flat_unsorted_parity():
-    """sort=False returns the same hit SET (order implementation-defined),
-    from both the threaded native expand and the numpy fallback."""
-    from havac_tpu.ops.common import hit_sort_order
-    from havac_tpu.ops.ssv_swar import decode_swar_flat
-
-    rng = np.random.default_rng(15)
-    n = 70_000  # above the native single-thread cutoff (1 << 15)
-    num_strips, W3 = 7, 1024
-    ids = rng.integers(0, 4 * num_strips * 3, size=n)
-    widx = rng.integers(0, W3, size=n)
-    words = rng.integers(0, 1 << 30, size=n).astype(np.int32)
-    words[rng.random(n) < 0.3] = 0
-    want = _numpy_decode_swar_flat(ids, widx, words, num_strips, W3)
-    for impl in ("native", "numpy"):
-        if impl == "native":
-            got = native.decode_swar_flat_native(
-                ids, widx, words, num_strips, W3, sort=False)
-            assert got is not None
-        else:  # numpy body: temporarily knock out the native fast path
-            import havac_tpu.native as nat
-            orig = nat.decode_swar_flat_native
-            nat.decode_swar_flat_native = lambda *a, **k: None
-            try:
-                got = decode_swar_flat(ids, widx, words, num_strips, W3,
-                                       sort=False)
-            finally:
-                nat.decode_swar_flat_native = orig
-        assert got[0].shape == want[0].shape
-        o = hit_sort_order(got[0], got[1])
-        np.testing.assert_array_equal(got[0][o], want[0])
-        np.testing.assert_array_equal(got[1][o], want[1])
-
-
 def test_native_sort_hits_parity():
-    from havac_tpu.ops.common import hit_sort_order
+    from havac.ops.common import hit_sort_order
 
     rng = np.random.default_rng(6)
     rows = rng.integers(0, 200_000, size=300_001).astype(np.int64)
@@ -239,8 +158,8 @@ def test_native_sort_hits_parity():
 
 
 def test_native_resolve_hits_parity():
-    from havac_tpu.hits.decode import _resolve_block
-    from havac_tpu.io.fasta import SequenceDatabase
+    from havac.hits.decode import _resolve_block
+    from havac.io.fasta import SequenceDatabase
 
     rng = np.random.default_rng(7)
     lengths = np.array([1000, 1, 2500, 700], dtype=np.int64)
@@ -262,7 +181,7 @@ def test_native_resolve_hits_parity():
 
 
 def test_native_merge_runs_parity():
-    from havac_tpu.ops.common import hit_sort_order
+    from havac.ops.common import hit_sort_order
 
     rng = np.random.default_rng(8)
     for k in (2, 3, 7, 16):

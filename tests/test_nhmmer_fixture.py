@@ -16,8 +16,8 @@ committed FASTA, including a planted reverse-strand instance).
 import json
 import os
 
-from havac_tpu.engine.cli import main
-from havac_tpu.validation import load_tblout
+from havac.engine.cli import main
+from havac.validation import load_tblout
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 HMM = os.path.join(DATA, "nhmmer_fixture.hmm")

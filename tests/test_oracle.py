@@ -4,7 +4,7 @@ Pallas kernel and the sharded path rely on)."""
 
 import numpy as np
 
-from havac_tpu.ops.reference import ssv_reference, ssv_reference_hits_set
+from havac.ops.reference import ssv_reference, ssv_reference_hits_set
 
 
 def brute_force_ssv(symbols, scores):

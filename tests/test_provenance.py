@@ -10,7 +10,7 @@ and every engine run records whether the native core was live.
 import numpy as np
 import pytest
 
-from havac_tpu.utils.provenance import provenance
+from havac.utils.provenance import provenance
 
 
 def test_stamp_fields_present():
@@ -21,7 +21,7 @@ def test_stamp_fields_present():
 
 
 def test_require_native_hard_fails_on_fallback(monkeypatch):
-    from havac_tpu import native
+    from havac import native
 
     monkeypatch.setattr(native, "available", lambda: False)
     with pytest.raises(RuntimeError, match="native library unavailable"):
@@ -31,23 +31,22 @@ def test_require_native_hard_fails_on_fallback(monkeypatch):
 
 
 def test_knob_env_values_recorded(monkeypatch):
-    monkeypatch.setenv("HAVAC_LOOKAHEAD", "5")
-    monkeypatch.setenv("HAVAC_TILE_BUDGET_GB", "2")
+    monkeypatch.setenv("HAVAC_NATIVE_BUILD", "0")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/cache")
     knobs = provenance()["knobs"]
-    assert knobs["HAVAC_LOOKAHEAD"] == "5"
-    assert knobs["HAVAC_TILE_BUDGET_GB"] == "2"
+    assert knobs["HAVAC_NATIVE_BUILD"] == "0"
+    assert knobs["JAX_COMPILATION_CACHE_DIR"] == "/cache"
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["xla", "gpu_interpret"])
 def test_run_stats_record_native_state_and_geometry(backend):
-    from havac_tpu import native
-    from havac_tpu.engine import Havac
-    from havac_tpu.io.fasta import SequenceDatabase
-    from havac_tpu.ops.common import SsvKernelConfig
-    from havac_tpu.testing.generator import model_from_consensus
+    from havac import native
+    from havac.engine import Havac
+    from havac.io.fasta import SequenceDatabase
+    from havac.ops.common import SsvKernelConfig
+    from havac.testing.generator import model_from_consensus
 
-    cfg = SsvKernelConfig(block_width=1024, rows_per_strip=8,
-                          max_hit_tiles=512, interpret=True)
+    cfg = SsvKernelConfig(block_width=1024, rows_per_strip=8)
     rng = np.random.default_rng(0)
     model = model_from_consensus(
         rng.integers(0, 4, size=40).astype(np.uint8), name="prov")
@@ -61,7 +60,7 @@ def test_run_stats_record_native_state_and_geometry(backend):
     if engine.stats.pipeline_prof is not None:  # pipelined backend only
         assert geo is not None
         assert geo["n_col"] * geo["n_row"] == engine.stats.num_chunks
-        assert geo["maxt"] >= 1 and geo["record_cap"] >= 1
+        assert geo["record_cap"] >= 1 and geo["lookahead"] >= 1
 
 
 def test_native_build_failure_is_loud(monkeypatch):
@@ -70,7 +69,7 @@ def test_native_build_failure_is_loud(monkeypatch):
     import importlib
     import logging
 
-    import havac_tpu.native as native
+    import havac.native as native
 
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_load_failed", False)
@@ -79,7 +78,7 @@ def test_native_build_failure_is_loud(monkeypatch):
     records = []
     handler = logging.Handler()
     handler.emit = lambda rec: records.append(rec)
-    logger = logging.getLogger("havac_tpu.native")
+    logger = logging.getLogger("havac.native")
     logger.addHandler(handler)
     try:
         assert native._load() is None

@@ -7,7 +7,7 @@ import math
 import numpy as np
 import pytest
 
-from havac_tpu.scoring.reprojection import (
+from havac.scoring.reprojection import (
     c_round,
     gumbel_inverse_survival,
     legacy_project_single_score,
@@ -15,7 +15,7 @@ from havac_tpu.scoring.reprojection import (
     project_scores_for_threshold256,
     threshold256_scale_factor,
 )
-from havac_tpu.testing.generator import model_from_consensus
+from havac.testing.generator import model_from_consensus
 
 
 def test_gumbel_inverse_survival_matches_direct_formula():

@@ -8,18 +8,18 @@ recall, and perturbed windows must be reported (the comparison logic of
 
 import numpy as np
 
-from havac_tpu.engine import Havac
-from havac_tpu.io.fasta import load_fasta_database
-from havac_tpu.ops.common import SsvKernelConfig
-from havac_tpu.testing.generator import generate_planted_fixture
-from havac_tpu.validation import (
+from havac.engine import Havac
+from havac.io.fasta import load_fasta_database
+from havac.ops.common import SsvKernelConfig
+from havac.testing.generator import generate_planted_fixture
+from havac.validation import (
     compare_containment,
     engine_hits_for_comparison,
     parse_tblout,
     quantization_report,
 )
 
-CFG = SsvKernelConfig(block_width=1024, rows_per_strip=8, interpret=True)
+CFG = SsvKernelConfig(block_width=1024, rows_per_strip=8)
 
 
 def run_engine():
@@ -145,8 +145,8 @@ def test_quantization_report_planted_vs_background():
 def test_float_oracle_crossings_match_scalar_oracle_when_exact():
     """With integer-valued float scores the float oracle must agree with
     ops.reference exactly (no quantization boundary to disagree across)."""
-    from havac_tpu.ops.reference import ssv_reference
-    from havac_tpu.validation.ssv_filter import float_ssv_crossings
+    from havac.ops.reference import ssv_reference
+    from havac.validation.ssv_filter import float_ssv_crossings
 
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 4, size=5000).astype(np.uint8)
@@ -164,7 +164,7 @@ def test_engine_vs_independent_float_oracle_containment():
     disagreement bounded and explained by the quantization report
     (the hmmerValidation + hmmerSsvRef pairing,
     `test/hmmerValidation/hmmerValidation.cpp:77-132`)."""
-    from havac_tpu.validation import float_ssv_windows
+    from havac.validation import float_ssv_windows
 
     engine = run_engine()
     hits = engine_hits_for_comparison(engine)
@@ -204,8 +204,8 @@ def test_validate_cli_with_float_oracle(tmp_path, capsys):
     """`validate` without --tblout runs against the independent oracle."""
     import json
 
-    from havac_tpu.engine.cli import main
-    from havac_tpu.io.hmm import write_hmm
+    from havac.engine.cli import main
+    from havac.io.hmm import write_hmm
 
     models, records = generate_planted_fixture(
         seed=31, model_length=48, sequence_length=4000, num_models=2)

@@ -9,16 +9,16 @@ these tests pin down that we actually do.
 import numpy as np
 import pytest
 
-from havac_tpu.engine import Havac, HavacRunState
-from havac_tpu.hits.verify import (
+from havac.engine import Havac, HavacRunState
+from havac.hits.verify import (
     HitVerificationError,
     verify_hits,
 )
-from havac_tpu.ops.common import SsvKernelConfig
-from havac_tpu.ops.reference import ssv_reference
-from havac_tpu.testing.generator import generate_planted_fixture
+from havac.ops.common import SsvKernelConfig
+from havac.ops.reference import ssv_reference
+from havac.testing.generator import generate_planted_fixture
 
-CFG = SsvKernelConfig(block_width=1024, rows_per_strip=8, interpret=True)
+CFG = SsvKernelConfig(block_width=1024, rows_per_strip=8)
 
 
 def case(seed=0, L=4000, P=64):

@@ -12,11 +12,11 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from havac_tpu.ops.reference import ssv_reference
-from havac_tpu.parallel.wavefront import ssv_wavefront
-from havac_tpu.scoring.reprojection import project_models
-from havac_tpu.testing.generator import generate_planted_fixture
-from havac_tpu.io.fasta import load_fasta_database
+from havac.ops.reference import ssv_reference
+from havac.parallel.wavefront import ssv_wavefront
+from havac.scoring.reprojection import project_models
+from havac.testing.generator import generate_planted_fixture
+from havac.io.fasta import load_fasta_database
 
 
 def make_mesh(n):

@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main() -> int:
-    from havac_tpu.io.hmm import read_hmm, write_hmm
+    from havac.io.hmm import read_hmm, write_hmm
 
     ap = argparse.ArgumentParser()
     ap.add_argument("hmm", help="input .hmm collection")
